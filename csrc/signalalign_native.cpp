@@ -1,7 +1,7 @@
-// Native host-side kernels for signalalign_tpu.
+// Native host-side kernels for signalalign_jax.
 //
 // These cover the sequential, data-dependent host work that does not belong
-// on the TPU: the raw-signal peak detector (event segmentation) and the
+// on the device: the raw-signal peak detector (event segmentation) and the
 // Suzuki-Kasahara adaptive banded Viterbi used to initialize event<->kmer
 // maps. Semantics mirror the reference C implementations:
 //   - short_long_peak_detector: /root/reference/impl/event_detection.c:122

@@ -7,13 +7,13 @@ import os
 import numpy as np
 import pytest
 
-from signalalign_tpu.compare import (ModelDistributions,
+from signalalign_jax.compare import (ModelDistributions,
                                      compare_model_to_own_hdp,
                                      compare_models, dump_densities,
                                      gaussian_pdf, hellinger, kl_divergence,
                                      median_delta, read_comparison_tsv,
                                      write_comparison_tsv)
-from signalalign_tpu.models.pore_model import PoreModel
+from signalalign_jax.models.pore_model import PoreModel
 
 REF = "/root/reference"
 NHDP = os.path.join(REF, "models/templateSingleLevelFixed.nhdp")
@@ -86,7 +86,7 @@ def test_compare_models_gaussian_only(tmp_path):
 
 @pytest.mark.skipif(not os.path.exists(NHDP), reason="reference data")
 def test_compare_shipped_hdp(tmp_path):
-    from signalalign_tpu.models.hdp_model import load_nhdp
+    from signalalign_jax.models.hdp_model import load_nhdp
 
     model = PoreModel.from_file(CPG6)
     hdp = load_nhdp(NHDP)
@@ -118,7 +118,7 @@ def test_compare_shipped_hdp(tmp_path):
 
 @pytest.mark.skipif(not os.path.exists(NHDP), reason="reference data")
 def test_compare_cli(tmp_path):
-    from signalalign_tpu.cli import main
+    from signalalign_jax.cli import main
 
     out = tmp_path / "cmp"
     rc = main(["compare", "--model", CPG6, "--hdp", NHDP,

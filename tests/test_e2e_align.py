@@ -12,12 +12,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.guide import guide_from_sam_record
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.io.sam import filter_reads
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline import signal_align as sa
+from signalalign_jax.io.guide import guide_from_sam_record
+from signalalign_jax.io.read import NanoporeReadData
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.io.sam import filter_reads
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline import signal_align as sa
 
 ONED = "/root/reference/tests/minion_test_reads/1D"
 GOLDEN = ("/root/reference/tests/test_alignments/ecoli1D_test_alignments_sm3/"

@@ -7,17 +7,17 @@ import shutil
 import numpy as np
 import pytest
 
-from signalalign_tpu.io.embed import (embed_alignment, full_rows_to_table,
+from signalalign_jax.io.embed import (embed_alignment, full_rows_to_table,
                                       mea_labels_from_events,
                                       read_mea_labels,
                                       read_signalalign_events)
-from signalalign_tpu.io.fast5 import Fast5
-from signalalign_tpu.io.guide import guide_from_sam_record
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.io.sam import filter_reads
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline import signal_align as sa
+from signalalign_jax.io.fast5 import Fast5
+from signalalign_jax.io.guide import guide_from_sam_record
+from signalalign_jax.io.read import NanoporeReadData
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.io.sam import filter_reads
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline import signal_align as sa
 
 RNA_DIR = "/root/reference/tests/minion_test_reads/RNA_edge_cases"
 RNA_REF = "/root/reference/tests/test_sequences/fake_rna_ref.fa"
@@ -88,7 +88,7 @@ def test_second_embed_increments(embedded):
 
 
 def test_create_labels_facade(embedded):
-    from signalalign_tpu.io.embed import CreateLabels
+    from signalalign_jax.io.embed import CreateLabels
     f5, rows, _, _ = embedded
     cl = CreateLabels(f5)
     assert cl.read_id.startswith("7d31de25")
@@ -100,8 +100,8 @@ def test_create_labels_facade(embedded):
 
 
 def test_plot_labelled_read(embedded, tmp_path):
-    from signalalign_tpu.io.embed import CreateLabels
-    from signalalign_tpu.visualization import plot_labelled_read
+    from signalalign_jax.io.embed import CreateLabels
+    from signalalign_jax.visualization import plot_labelled_read
     f5, _, _, _ = embedded
     cl = CreateLabels(f5)
     labels = cl.add_mea_labels()

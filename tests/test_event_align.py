@@ -6,13 +6,13 @@ import os
 import numpy as np
 import pytest
 
-from signalalign_tpu.io.fast5 import Fast5
-from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
-from signalalign_tpu.ops.event_detect import (_peak_detector_py,
+from signalalign_jax.io.fast5 import Fast5
+from signalalign_jax.models.pore_model import PoreModel, ScalingParams
+from signalalign_jax.ops.event_detect import (_peak_detector_py,
                                               compute_tstat, detect_events,
                                               trim_and_segment_raw)
-from signalalign_tpu.pipeline import event_align as ea
-from signalalign_tpu.utils import native
+from signalalign_jax.pipeline import event_align as ea
+from signalalign_jax.utils import native
 
 ONED = "/root/reference/tests/minion_test_reads/1D"
 MODEL = "/root/reference/models/testModelR9p4_5mer_acegt_template.model"
@@ -103,7 +103,7 @@ def test_align_raw_real_read(fast5_path, model):
     assert n_mapped > 0.5 * len(res.events)
     assert res.moves.max() >= 1
     # event map reconstruction works downstream
-    from signalalign_tpu.io.read import make_event_map
+    from signalalign_jax.io.read import make_event_map
     em = make_event_map(res.moves, res.p_model_state,
                         len(read_seq), model.kmer_length)
     assert len(em) == len(read_seq)

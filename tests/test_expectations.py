@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from signalalign_tpu.models.expectations import (ExpectationsAccumulator,
+from signalalign_jax.models.expectations import (ExpectationsAccumulator,
                                                  write_expectations_file)
-from signalalign_tpu.models.pore_model import PoreModel
+from signalalign_jax.models.pore_model import PoreModel
 
 FIXTURE = ("/root/reference/tests/test_expectation_files/"
            "4f9a316c-8bb3-410a-8cfc-026061f7e8db.template.expectations.tsv")
@@ -58,7 +58,7 @@ def test_hdp_expectations_roundtrip(tmp_path):
     """HdpHmm 5-line format: transitions + thresholded (kmer, event)
     assignment lists (hdpHmm_writeToFile/loadFromFile,
     /root/reference/impl/continuousHmm.c:571-790)."""
-    from signalalign_tpu.models.expectations import (
+    from signalalign_jax.models.expectations import (
         read_hdp_expectations_file, write_hdp_expectations_file)
     model = PoreModel.from_file(MODEL)
     rng = np.random.default_rng(1)

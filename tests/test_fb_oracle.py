@@ -14,13 +14,13 @@ import os
 import numpy as np
 import pytest
 
-from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
-from signalalign_tpu.ops.band_geometry import (band_widths, build_band,
+from signalalign_jax.models.pore_model import PoreModel, ScalingParams
+from signalalign_jax.ops.band_geometry import (band_widths, build_band,
                                                filter_to_remove_overlap,
                                                get_split_points)
-from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
+from signalalign_jax.ops.fb_oracle import (CellPaths, Emissions,
                                            banded_forward_backward)
-from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_jax.utils.alphabet import DEFAULT_AMBIG_BASES
 
 MODELS = "/root/reference/models"
 

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from signalalign_tpu.hdp.train import (build_topology, gibbs_train,
+from signalalign_jax.hdp.train import (build_topology, gibbs_train,
                                        nig_params_from_data,
                                        train_hdp_from_alignment, write_nhdp)
-from signalalign_tpu.models.hdp_model import load_nhdp
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.utils.alphabet import Alphabet
+from signalalign_jax.models.hdp_model import load_nhdp
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.utils.alphabet import Alphabet
 
 
 def test_topologies():
@@ -73,7 +73,7 @@ def test_gibbs_recovers_modes(tmp_path):
 
 
 def test_full_type_registry():
-    from signalalign_tpu.hdp.train import (HDP_TYPE_REGISTRY, build_topology,
+    from signalalign_jax.hdp.train import (HDP_TYPE_REGISTRY, build_topology,
                                            hdp_type_alphabet)
     assert len(HDP_TYPE_REGISTRY) == 21  # trainModels.py:580-602
     a = hdp_type_alphabet("compFixed", 3)
@@ -137,7 +137,7 @@ def test_prior_gamma_sampling(tmp_path):
 def test_prior_nhdp_roundtrip(tmp_path):
     """singleLevelPrior end-to-end: .nhdp carries sample_gamma metadata and
     the sampled per-depth gammas; load_nhdp reads it back."""
-    from signalalign_tpu.models.hdp_model import load_nhdp
+    from signalalign_jax.models.hdp_model import load_nhdp
 
     rng = np.random.default_rng(1)
     model = PoreModel("AC", 3)

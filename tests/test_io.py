@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from signalalign_tpu.io.fast5 import Fast5
-from signalalign_tpu.io.guide import find_guide_alignment, guide_from_sam_record
-from signalalign_tpu.io.read import NanoporeReadData, make_event_map, mean_fastq_quality
-from signalalign_tpu.io.reference import ProcessedReference, load_fasta
-from signalalign_tpu.io.sam import filter_reads, read_bam
-from signalalign_tpu.utils.alphabet import reverse_complement
+from signalalign_jax.io.fast5 import Fast5
+from signalalign_jax.io.guide import find_guide_alignment, guide_from_sam_record
+from signalalign_jax.io.read import NanoporeReadData, make_event_map, mean_fastq_quality
+from signalalign_jax.io.reference import ProcessedReference, load_fasta
+from signalalign_jax.io.sam import filter_reads, read_bam
+from signalalign_jax.utils.alphabet import reverse_complement
 
 TESTS = "/root/reference/tests"
 ONED = os.path.join(TESTS, "minion_test_reads/1D")
@@ -120,7 +120,7 @@ def test_processed_reference_targets(ecoli_fasta):
 
 
 def test_motif_and_substring_utils():
-    from signalalign_tpu.io.reference import (find_gatc_motifs,
+    from signalalign_jax.io.reference import (find_gatc_motifs,
                                               find_substring_indices,
                                               replace_motifs)
     assert replace_motifs("ACCAGGT", [("CCAGG", "CEAGG")]) == "ACEAGGT"
@@ -133,7 +133,7 @@ def test_motif_and_substring_utils():
 
 
 def test_make_positions_file(tmp_path):
-    from signalalign_tpu.io.reference import (AmbiguityPositions,
+    from signalalign_jax.io.reference import (AmbiguityPositions,
                                               ProcessedReference,
                                               make_positions_file)
     fa = tmp_path / "r.fa"
@@ -156,7 +156,7 @@ def test_make_positions_file(tmp_path):
 
 
 def test_filter_reads_without_readdb():
-    from signalalign_tpu.io.sam import build_readdb, filter_reads
+    from signalalign_jax.io.sam import build_readdb, filter_reads
     d = "/root/reference/tests/minion_test_reads/RNA_edge_cases"
     mapping = build_readdb([d])
     assert any(k.startswith("7d31de25") for k in mapping)
@@ -165,7 +165,7 @@ def test_filter_reads_without_readdb():
 
 
 def test_target_regions(tmp_path):
-    from signalalign_tpu.io.guide import GuideAlignment, TargetRegions
+    from signalalign_jax.io.guide import GuideAlignment, TargetRegions
     f = tmp_path / "regions.tsv"
     f.write_text("100\t200\n5000\t5100\n")
     tr = TargetRegions(str(f))
@@ -178,7 +178,7 @@ def test_target_regions(tmp_path):
 def test_extract_cli(tmp_path):
     """extract-binary equivalent: fast5 dir -> fastq + index readdb
     (impl/extract.c:23)."""
-    from signalalign_tpu.cli import main
+    from signalalign_jax.cli import main
 
     out = tmp_path / "reads.fastq"
     rc = main(["extract", "-d",

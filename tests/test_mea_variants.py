@@ -4,10 +4,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.output import FullRow
-from signalalign_tpu.pipeline.mea import (mea_align, mea_from_aligned_pairs,
+from signalalign_jax.io.output import FullRow
+from signalalign_jax.pipeline.mea import (mea_align, mea_from_aligned_pairs,
                                           mea_slow_spec)
-from signalalign_tpu.pipeline.variant_caller import (aggregate_over_reads,
+from signalalign_jax.pipeline.variant_caller import (aggregate_over_reads,
                                                      marginalize_full_variants)
 
 
@@ -93,13 +93,13 @@ def test_aggregate_over_reads():
 def test_validate_read_rna():
     """validateSignalAlignment equivalent: SA-vs-guide event distances."""
     import os
-    from signalalign_tpu.io.guide import guide_from_sam_record
-    from signalalign_tpu.io.read import NanoporeReadData
-    from signalalign_tpu.io.reference import ProcessedReference
-    from signalalign_tpu.io.sam import filter_reads
-    from signalalign_tpu.models.pore_model import PoreModel
-    from signalalign_tpu.pipeline import signal_align as sa
-    from signalalign_tpu.pipeline.validate import validate_read
+    from signalalign_jax.io.guide import guide_from_sam_record
+    from signalalign_jax.io.read import NanoporeReadData
+    from signalalign_jax.io.reference import ProcessedReference
+    from signalalign_jax.io.sam import filter_reads
+    from signalalign_jax.models.pore_model import PoreModel
+    from signalalign_jax.pipeline import signal_align as sa
+    from signalalign_jax.pipeline.validate import validate_read
 
     d = "/root/reference/tests/minion_test_reads/RNA_edge_cases"
     pairs = filter_reads(os.path.join(d, "rna_reads.bam"),
@@ -129,7 +129,7 @@ def test_validate_read_rna():
 
 def test_generate_labels():
     import pandas as pd
-    from signalalign_tpu.pipeline.variant_caller import (generate_labels,
+    from signalalign_jax.pipeline.variant_caller import (generate_labels,
                                                          write_variant_data)
     pred = pd.DataFrame([
         {"contig": "c1", "position": 10, "forward_mapped": True,

@@ -12,8 +12,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.output import FullRow
-from signalalign_tpu.pipeline.variant_caller import (aggregate_over_reads,
+from signalalign_jax.io.output import FullRow
+from signalalign_jax.pipeline.variant_caller import (aggregate_over_reads,
                                                      marginalize_full_variants)
 
 CANONICAL = "/root/reference/tests/test_variantCalled_files/canonical"
@@ -92,7 +92,7 @@ def test_call_methylation_cli_on_goldens(tmp_path):
     """scripts/call_methylation.py equivalent: the CLI consumes a
     directory of full-format .sm TSVs and writes per-site calls +
     aggregate; values must match the in-process marginalizer."""
-    from signalalign_tpu.cli import main as cli_main
+    from signalalign_jax.cli import main as cli_main
     out = tmp_path / "calls.tsv"
     rc = cli_main(["call_methylation", "--input_dir", METHYL,
                    "--variants", "CE", "--out", str(out)])
@@ -117,7 +117,7 @@ def test_call_methylation_cli_on_goldens(tmp_path):
 
 def test_kmer_hist_cli_on_goldens(tmp_path):
     """scripts/generate_kmer_histograms.py equivalent."""
-    from signalalign_tpu.cli import main as cli_main
+    from signalalign_jax.cli import main as cli_main
     path = glob.glob(os.path.join(CANONICAL, "*.sm.*.tsv"))[0]
     import pandas as _pd
     gold = _pd.read_csv(path, sep="\t", names=GOLD_COLS,

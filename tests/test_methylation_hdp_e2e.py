@@ -14,12 +14,12 @@ import os
 import numpy as np
 import pytest
 
-import signalalign_tpu.pipeline.signal_align as sa
-from signalalign_tpu.io.read import NanoporeRead2DData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.ops import banded_fb as bfb
-from signalalign_tpu.pipeline.variant_caller import (
+import signalalign_jax.pipeline.signal_align as sa
+from signalalign_jax.io.read import NanoporeRead2DData
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.ops import banded_fb as bfb
+from signalalign_jax.pipeline.variant_caller import (
     aggregate_over_reads, marginalize_full_variants)
 
 REF = "/root/reference"
@@ -31,7 +31,7 @@ N_PER_GROUP = 3
 
 
 def _load_reads(dirname, n):
-    from signalalign_tpu.io.minialign import generate_guide_alignment
+    from signalalign_jax.io.minialign import generate_guide_alignment
 
     ref = ProcessedReference(ZYMO)
     out = []
@@ -82,8 +82,8 @@ def test_methylation_hdp_train_and_call(tmp_path):
                     fh.write(f"{label}\tt\t{descaled:.6f}\n")
 
     # --- native Gibbs HDP training (buildHdpUtil equivalent)
-    from signalalign_tpu.hdp.train import train_hdp_from_alignment
-    from signalalign_tpu.models.hdp_model import load_nhdp
+    from signalalign_jax.hdp.train import train_hdp_from_alignment
+    from signalalign_jax.models.hdp_model import load_nhdp
 
     nhdp_path = train_hdp_from_alignment(
         str(build), model, hdp_type="multisetFixed",

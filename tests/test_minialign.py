@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from signalalign_tpu.io.minialign import _sw, generate_guide_alignment
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.utils.alphabet import reverse_complement
+from signalalign_jax.io.minialign import _sw, generate_guide_alignment
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.utils.alphabet import reverse_complement
 
 
 @pytest.fixture(scope="module")
@@ -80,8 +80,8 @@ def test_seeded_genome_scale_reverse_strand():
     read against the full E. coli reconstruction must come back as a
     reverse-strand guide over the same window, with valid anchors."""
     import bench
-    from signalalign_tpu.io.sam import read_bam
-    from signalalign_tpu.utils import native
+    from signalalign_jax.io.sam import read_bam
+    from signalalign_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -108,8 +108,8 @@ def test_seeded_min_ref_boundary(tmp_path):
     """References straddling SEEDED_MIN_REF route to different engines
     (full DP below, minimizer-seeded above); both must recover the same
     window for the same read."""
-    from signalalign_tpu.io.minialign import SEEDED_MIN_REF
-    from signalalign_tpu.utils import native
+    from signalalign_jax.io.minialign import SEEDED_MIN_REF
+    from signalalign_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -137,8 +137,8 @@ def test_seeded_repeat_ambiguity():
     MAPQ ~ 0 (two near-equal chains — bwa's repeat signal,
     utils/bwaWrapper.py maps inherit it from bwa mem), while a
     unique-region read from the same genome keeps high confidence."""
-    from signalalign_tpu.io.minialign import SEEDED_MIN_REF
-    from signalalign_tpu.utils import native
+    from signalalign_jax.io.minialign import SEEDED_MIN_REF
+    from signalalign_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -174,8 +174,8 @@ def test_seeded_genome_scale():
     import time
 
     import bench
-    from signalalign_tpu.io.sam import read_bam
-    from signalalign_tpu.utils import native
+    from signalalign_jax.io.sam import read_bam
+    from signalalign_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")

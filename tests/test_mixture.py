@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from signalalign_tpu.pipeline.mixture import (
+from signalalign_jax.pipeline.mixture import (
     GaussianMixture1D, closest_to_canonical, find_best_1d_gaussian_fit,
     find_modification_index_and_character, generate_mixture_model_for_motifs,
     get_motif_kmer_pairs, get_motif_kmers, get_mus_and_sigmas_1d,
@@ -67,7 +67,7 @@ def test_motif_kmers_cover_modified_position():
 
 
 def test_generate_mixture_model_for_motifs(tmp_path, reference_dir):
-    from signalalign_tpu.models.pore_model import PoreModel
+    from signalalign_jax.models.pore_model import PoreModel
     model = PoreModel.from_file(MODEL)
 
     # synthesize bimodal event means for one canonical kmer: the second
@@ -101,8 +101,8 @@ def test_generate_mixture_model_for_motifs(tmp_path, reference_dir):
 
 
 def test_mixture_cli(tmp_path, reference_dir):
-    from signalalign_tpu.cli import main
-    from signalalign_tpu.models.pore_model import PoreModel
+    from signalalign_jax.cli import main
+    from signalalign_jax.models.pore_model import PoreModel
     model = PoreModel.from_file(MODEL)
     kmer = "ACCAG"
     ki = model.alphabet.kmer_index(kmer)

@@ -1,5 +1,5 @@
 """Multi-host scaffolding: 2 simulated processes on CPU run the SAME
-host-sharded EM program a TPU pod would (jax.distributed + global mesh +
+host-sharded EM program a multi-host run would (jax.distributed + global mesh +
 cross-host psum), and agree on the replicated result (VERDICT r1 item 5).
 """
 
@@ -18,7 +18,7 @@ sys.path.insert(0, os.environ["SA_REPO"])
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from signalalign_tpu.parallel import multihost
+from signalalign_jax.parallel import multihost
 
 pid = int(os.environ["SIGNALALIGN_PROC"])
 multihost.initialize()   # from SIGNALALIGN_* env
@@ -26,10 +26,10 @@ assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 
 import numpy as np
-from signalalign_tpu.ops import banded_fb as bfb
-from signalalign_tpu.ops.batch import stack_kmer_ids, stack_problems
-from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
-from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_jax.ops import banded_fb as bfb
+from signalalign_jax.ops.batch import stack_kmer_ids, stack_problems
+from signalalign_jax.models.pore_model import PoreModel, ScalingParams
+from signalalign_jax.utils.alphabet import DEFAULT_AMBIG_BASES
 
 # per-host reads: each host preps ONLY its shard (host-local input IO)
 model = PoreModel("ACGT", 5)
@@ -117,8 +117,8 @@ sys.path.insert(0, os.environ["SA_REPO"])
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline.runner import run_signal_align
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline.runner import run_signal_align
 
 ONED = "/root/reference/tests/minion_test_reads/1D"
 written = run_signal_align(
@@ -142,8 +142,8 @@ def test_two_process_cpu_inference(tmp_path, ecoli_fasta):
     (VERDICT r2 item 6)."""
     import glob
 
-    from signalalign_tpu.models.pore_model import PoreModel
-    from signalalign_tpu.pipeline.runner import run_signal_align
+    from signalalign_jax.models.pore_model import PoreModel
+    from signalalign_jax.pipeline.runner import run_signal_align
 
     oned = "/root/reference/tests/minion_test_reads/1D"
     single_dir = tmp_path / "single"

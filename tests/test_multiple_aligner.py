@@ -8,8 +8,8 @@ column merging).
 import numpy as np
 import pytest
 
-from signalalign_tpu.models.discrete_hmm import DiscreteHmm
-from signalalign_tpu.pipeline.multiple_aligner import (
+from signalalign_jax.models.discrete_hmm import DiscreteHmm
+from signalalign_jax.pipeline.multiple_aligner import (
     alignment_score, make_alignment, make_all_pairwise_alignments,
     render_msa)
 

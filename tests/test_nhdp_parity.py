@@ -148,9 +148,9 @@ def test_strict_parser_reads_reference_fixture():
 
 
 def _train_tiny(tmp_path):
-    from signalalign_tpu.hdp.train import train_hdp_from_alignment
-    from signalalign_tpu.models.pore_model import PoreModel
-    from signalalign_tpu.utils import native
+    from signalalign_jax.hdp.train import train_hdp_from_alignment
+    from signalalign_jax.models.pore_model import PoreModel
+    from signalalign_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -193,7 +193,7 @@ def test_trained_nhdp_matches_reference_contract(tmp_path):
 
     # densities written = densities this repo's own reader loads, and
     # the observed leaf dps carry proper (positive, normalized-ish) mass
-    from signalalign_tpu.models.hdp_model import load_nhdp
+    from signalalign_jax.models.hdp_model import load_nhdp
     nhdp = load_nhdp(out)
     grid = np.linspace(f.grid_start, f.grid_stop, f.grid_length)
     dx = grid[1] - grid[0]
@@ -203,7 +203,7 @@ def test_trained_nhdp_matches_reference_contract(tmp_path):
             assert abs(row.sum() * dx - 1.0) < 0.15
     # spline slopes section consistent with the density rows (natural
     # cubic spline of the grid; reference spline_knot_slopes)
-    from signalalign_tpu.hdp.train import spline_slopes
+    from signalalign_jax.hdp.train import spline_slopes
     for i, row in f.slopes.items():
         expect = spline_slopes(grid, f.post_pred[i][None])[0]
         np.testing.assert_allclose(row, expect, rtol=1e-8, atol=1e-10)

@@ -9,8 +9,8 @@ import shutil
 import h5py
 import pytest
 
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline.runner import run_signal_align
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline.runner import run_signal_align
 
 NOEV_DIR = "/root/reference/tests/minion_test_reads/no_event_data_1D_ecoli"
 ONED_BAM = "/root/reference/tests/minion_test_reads/oneD.bam"

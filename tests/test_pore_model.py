@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 from scipy.stats import invgauss, norm
 
-from signalalign_tpu.models.pore_model import (PoreModel, ScalingParams,
+from signalalign_jax.models.pore_model import (PoreModel, ScalingParams,
                                                _log_gauss_pdf,
                                                _log_inv_gauss_pdf)
-from signalalign_tpu.utils.alphabet import (Alphabet, DEFAULT_AMBIG_BASES,
+from signalalign_jax.utils.alphabet import (Alphabet, DEFAULT_AMBIG_BASES,
                                             expand_kmer_paths,
                                             reverse_complement)
 

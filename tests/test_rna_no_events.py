@@ -11,12 +11,12 @@ import h5py
 import numpy as np
 import pytest
 
-from signalalign_tpu.io.guide import guide_from_sam_record
-from signalalign_tpu.io.sam import filter_reads
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline import signal_align as sa
-from signalalign_tpu.pipeline.event_align import nanopore_read_from_raw
+from signalalign_jax.io.guide import guide_from_sam_record
+from signalalign_jax.io.sam import filter_reads
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline import signal_align as sa
+from signalalign_jax.pipeline.event_align import nanopore_read_from_raw
 
 RNA_DIR = "/root/reference/tests/minion_test_reads/RNA_edge_cases"
 NOEV_DIR = "/root/reference/tests/minion_test_reads/RNA_no_events"

@@ -9,14 +9,14 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.guide import guide_from_sam_record
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import (AmbiguityPositions,
+from signalalign_jax.io.guide import guide_from_sam_record
+from signalalign_jax.io.read import NanoporeReadData
+from signalalign_jax.io.reference import (AmbiguityPositions,
                                           ProcessedReference)
-from signalalign_tpu.io.sam import filter_reads
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline import signal_align as sa
-from signalalign_tpu.pipeline.variant_caller import marginalize_full_variants
+from signalalign_jax.io.sam import filter_reads
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline import signal_align as sa
+from signalalign_jax.pipeline.variant_caller import marginalize_full_variants
 
 RNA_DIR = "/root/reference/tests/minion_test_reads/RNA_edge_cases"
 RNA_REF = "/root/reference/tests/test_sequences/fake_rna_ref.fa"

@@ -6,11 +6,11 @@ import os
 
 import pytest
 
-from signalalign_tpu.io.guide import guide_from_sam_record
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.sam import filter_reads
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline.scan import (PeriodicReference,
+from signalalign_jax.io.guide import guide_from_sam_record
+from signalalign_jax.io.read import NanoporeReadData
+from signalalign_jax.io.sam import filter_reads
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline.scan import (PeriodicReference,
                                            replace_periodic_positions,
                                            scan_single_nucleotide_probabilities)
 

@@ -1,33 +1,35 @@
-"""Production site-calling mode through the runner (VERDICT r4 item 1):
-``run_alignment_batch(call_variants=...)`` computes per-site variant
-marginals with DEVICE site sums (execute_site_marginals) on the Pallas
-path and host pair-folds on the XLA path — both must reproduce the
-host marginalizer (marginalize_full_variants,
-reference src/signalalign/variantCaller.py:123-187) applied to the
-full-output rows of a plain run of the SAME batch."""
+"""Production site-calling mode through the runner:
+``run_alignment_batch(call_variants=...)`` folds each segment's compacted
+device pairs onto per-site variant marginals, which must reproduce the
+host marginalizer (marginalize_full_variants, reference
+src/signalalign/variantCaller.py:123-187) applied to the full-output rows
+of a plain run of the SAME batch; its TSVs must match the pandas writer
+they replaced byte for byte."""
+
+import os
 
 import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.guide import GuideAlignment
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
-from signalalign_tpu.pipeline.runner import run_alignment_batch
-from signalalign_tpu.pipeline.signal_align import AlignmentConfig
-from signalalign_tpu.pipeline.variant_caller import (
-    aggregate_over_reads, marginalize_full_variants)
+from signalalign_jax.io.guide import GuideAlignment
+from signalalign_jax.io.read import NanoporeReadData
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.models.pore_model import PoreModel, ScalingParams
+from signalalign_jax.pipeline.runner import (run_alignment_batch,
+                                             write_variant_outputs)
+from signalalign_jax.pipeline.signal_align import AlignmentConfig
+from signalalign_jax.pipeline.variant_caller import marginalize_full_variants
 
 MODEL = "/root/reference/models/testModelR9p4_5mer_acegt_template.model"
 
 
 @pytest.fixture(scope="module")
-def cpg_batch(tmp_path_factory):
+def cpg_batch(tmp_path_factory, acgt_model):
     """8 synthetic reads over a CpG-dense Y-ambiguous reference (the
-    same construction as the runner P=2 dispatch test)."""
+    same construction as the runner P=2 test)."""
     tmp_path = tmp_path_factory.mktemp("sitecall")
-    model = PoreModel.from_file(MODEL)
+    model = acgt_model
     rng = np.random.default_rng(9)
     core = "".join(rng.choice(list("ACGT"), size=598))
     genome = ("ACGT" * 40 + core + "ACGT" * 40).replace("CG", "CGCG")
@@ -56,7 +58,7 @@ def cpg_batch(tmp_path_factory):
             model_states=None, p_model_state=None, kmer_length=k,
             params=ScalingParams(), rna=False)
         guide = GuideAlignment(
-            contig="chr", forward=True, window_start=start,
+            contig="chr", forward=ri % 2 == 0, window_start=start,
             window_end=start + seq_len, query_start=0, query_end=seq_len,
             ops=[(seq_len, "M")])
         rgs.append((read, guide))
@@ -65,8 +67,7 @@ def cpg_batch(tmp_path_factory):
 
 def _host_reference_calls(reference, model, rgs, cfg):
     """Golden: plain batch -> full rows -> host marginalizer."""
-    base = run_alignment_batch(rgs, reference, model, cfg,
-                               use_pallas=False)
+    base = run_alignment_batch(rgs, reference, model, cfg)
     out = {}
     for r in base:
         rows = r.full_rows(model)
@@ -76,9 +77,9 @@ def _host_reference_calls(reference, model, rgs, cfg):
     return out
 
 
-def _assert_calls_match(got: pd.DataFrame, ref: pd.DataFrame, tol):
-    gk = {(r["strand"], int(r["position"])): (r["C"], r["T"])
-          for _, r in got.iterrows()}
+def _assert_calls_match(got, ref: pd.DataFrame, tol):
+    gk = {(s, int(p)): (c, t) for s, p, c, t in
+          zip(got["strand"], got["position"], got["C"], got["T"])}
     rk = {(r["strand"], int(r["position"])): (r["C"], r["T"])
           for _, r in ref.iterrows()}
     assert set(gk) == set(rk), (set(gk) ^ set(rk))
@@ -87,9 +88,10 @@ def _assert_calls_match(got: pd.DataFrame, ref: pd.DataFrame, tol):
         assert abs(gk[key][1] - rk[key][1]) < tol
         assert abs(gk[key][0] + gk[key][1] - 1.0) < 1e-6
     # row ORDER mirrors MarginalizeFullVariants: t strand first,
-    # positions ascending on '+' mapping
+    # positions ascending on '+' mapping, descending on '-'
     pos = [int(p) for p in got["position"]]
-    assert pos == sorted(pos)
+    want = list(ref["position"])
+    assert pos == [int(p) for p in want]
 
 
 def test_site_calling_xla_fold_matches_host_marginalizer(cpg_batch):
@@ -97,36 +99,70 @@ def test_site_calling_xla_fold_matches_host_marginalizer(cpg_batch):
     cfg = AlignmentConfig(ambig_map={"Y": "CT"})
     ref_calls = _host_reference_calls(reference, model, rgs, cfg)
     res = run_alignment_batch(rgs, reference, model, cfg,
-                              use_pallas=False, call_variants="CT")
+                              call_variants="CT")
     assert len(res) == 8
     for r in res:
         assert r.aligned_pairs == []        # only calls, no pair stream
-        # the XLA fold is numerically identical to the marginalizer
+        # the pair fold is numerically identical to the marginalizer
         _assert_calls_match(r.variant_calls, ref_calls[r.read_label],
                             tol=1e-9)
 
 
-def test_site_calling_device_path_matches_host_marginalizer(cpg_batch,
-                                                            capfd):
+def _pandas_variant_outputs(results, out_dir, variants):
+    """The pandas writer the run path used before it went pandas-free:
+    per-read DataFrame.to_csv, groupby aggregate, per-read means."""
+    vs = sorted(variants)
+    frames = []
+    for r in results:
+        df = pd.DataFrame(r.variant_calls.rows,
+                          columns=r.variant_calls.columns)
+        df.to_csv(os.path.join(out_dir, f"{r.read_label}.sm.variants.tsv"),
+                  sep="\t", index=False)
+        frames.append(df)
+    nz = [df for df in frames if len(df)]
+    if nz:
+        allr = pd.concat(nz, ignore_index=True)
+        agg = allr.groupby(["contig", "position", "strand"],
+                           as_index=False)[vs].sum()
+        totals = agg[vs].sum(axis=1)
+        for v in vs:
+            agg[v] = agg[v] / totals
+    else:
+        agg = pd.DataFrame(columns=["contig", "position", "strand",
+                                    "forward_mapped"] + vs)
+    agg.to_csv(os.path.join(out_dir, "variants_aggregate.tsv"), sep="\t",
+               index=False)
+    cols = ["read_name", "contig", "strand", "forward_mapped", "n_sites"] + vs
+    data = []
+    if frames:
+        allp = pd.concat(frames, ignore_index=True)
+        for (rn, contig, strand, fwd), grp in allp.groupby(
+                ["read_name", "contig", "strand", "forward_mapped"],
+                sort=False):
+            data.append([rn, contig, strand, fwd, len(grp)]
+                        + [float(grp[v].mean()) for v in vs])
+    pd.DataFrame(data, columns=cols).to_csv(
+        os.path.join(out_dir, "variants_per_read.tsv"), sep="\t",
+        index=False)
+
+
+@pytest.mark.parametrize("n_reads", [8, 0])
+def test_variants_tsv_matches_pandas_writer(cpg_batch, tmp_path, n_reads):
+    """Site-mode TSVs (per read, aggregate, per-read summary) are byte
+    for byte what the pandas writer wrote, including the empty batch."""
     reference, model, rgs = cpg_batch
     cfg = AlignmentConfig(ambig_map={"Y": "CT"})
-    ref_calls = _host_reference_calls(reference, model, rgs, cfg)
-    capfd.readouterr()
-    res = run_alignment_batch(rgs, reference, model, cfg,
-                              use_pallas=True, pallas_interpret=True,
-                              verbose=True, call_variants="CT")
-    err = capfd.readouterr().err
-    assert "pallas fallback" not in err, err    # device path MUST run
-    assert len(res) == 8
-    for r in res:
-        assert r.aligned_pairs == []
-        # device u16 posterior stack vs u8 pair bytes: sub-percent
-        _assert_calls_match(r.variant_calls, ref_calls[r.read_label],
-                            tol=0.02)
-    # and the across-read aggregation consumes the frames directly
-    agg = aggregate_over_reads([r.variant_calls for r in res], "CT")
-    assert len(agg) > 10
-    assert np.allclose(agg["C"] + agg["T"], 1.0)
+    res = run_alignment_batch(rgs[:n_reads], reference, model, cfg,
+                              call_variants="CT")
+    new, old = tmp_path / "new", tmp_path / "old"
+    new.mkdir()
+    old.mkdir()
+    written = write_variant_outputs(res, str(new), "CT")
+    _pandas_variant_outputs(res, str(old), "CT")
+    assert len(written) == len(os.listdir(old)) == n_reads + 2
+    for path in written:
+        name = os.path.basename(path)
+        assert open(path, "rb").read() == open(old / name, "rb").read(), name
 
 
 @pytest.mark.slow
@@ -136,7 +172,7 @@ def test_run_signal_align_variants_output(tmp_path, ecoli_fasta):
     aggregate (reference flow runSignalAlign -> variantCaller)."""
     import os
 
-    from signalalign_tpu.pipeline.runner import run_signal_align
+    from signalalign_jax.pipeline.runner import run_signal_align
 
     oned = "/root/reference/tests/minion_test_reads/1D"
     model = PoreModel.from_file(MODEL)

@@ -12,11 +12,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from signalalign_tpu.io.minialign import generate_guide_alignment
-from signalalign_tpu.io.read import NanoporeRead2DData, assemble_2d_sequence
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.pipeline import signal_align as sa
+from signalalign_jax.io.minialign import generate_guide_alignment
+from signalalign_jax.io.read import NanoporeRead2DData, assemble_2d_sequence
+from signalalign_jax.io.reference import ProcessedReference
+from signalalign_jax.models.pore_model import PoreModel
+from signalalign_jax.pipeline import signal_align as sa
 
 PUC_DIR = "/root/reference/tests/minion_test_reads/pUC"
 PUC_REF = "/root/reference/tests/test_sequences/pUC19_SspI.fa"
@@ -92,7 +92,7 @@ def test_zymo_r73_2d_vs_golden():
     the shipped zymo golden."""
     import glob
 
-    from signalalign_tpu.io.minialign import generate_guide_alignment
+    from signalalign_jax.io.minialign import generate_guide_alignment
 
     ref = ProcessedReference(
         "/root/reference/tests/test_sequences/zymo_sequence.fasta")
@@ -132,7 +132,7 @@ def test_puc_forward_read_vs_golden():
     shift = window_end) against its golden."""
     import glob
 
-    from signalalign_tpu.io.minialign import generate_guide_alignment
+    from signalalign_jax.io.minialign import generate_guide_alignment
 
     reference = ProcessedReference(PUC_REF)
     tm = PoreModel.from_file(T_MODEL)
@@ -167,9 +167,9 @@ def test_hdp_mode_e2e_zymo():
     base distribution, so posteriors are diffuse but valid)."""
     import glob
 
-    from signalalign_tpu.io.minialign import generate_guide_alignment
-    from signalalign_tpu.models.hdp_model import load_nhdp
-    from signalalign_tpu.ops import banded_fb as bfb
+    from signalalign_jax.io.minialign import generate_guide_alignment
+    from signalalign_jax.models.hdp_model import load_nhdp
+    from signalalign_jax.ops import banded_fb as bfb
 
     ref = ProcessedReference(
         "/root/reference/tests/test_sequences/zymo_sequence.fasta")

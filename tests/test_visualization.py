@@ -10,7 +10,7 @@ MODEL = "/root/reference/models/testModelR9p4_5mer_acegt_template.model"
 
 
 def test_em_model_distributions(tmp_path):
-    from signalalign_tpu.visualization import plot_em_model_distributions
+    from signalalign_jax.visualization import plot_em_model_distributions
     out = plot_em_model_distributions(
         [MODEL, MODEL], ["ACGTA", "TTTTT"], str(tmp_path / "em.png"),
         assignments={"ACGTA": list(np.random.default_rng(0)
@@ -22,10 +22,10 @@ def test_kmer_overlay_and_animation(tmp_path):
     """plot_kmer_distribution2 + animate_kmer_distribution analogues
     (compare_trained_models.py:244-489): multi-kmer overlay PNG and the
     EM-iteration GIF (or its static fallback)."""
-    from signalalign_tpu.compare import ModelDistributions
-    from signalalign_tpu.models.hdp_model import load_nhdp
-    from signalalign_tpu.models.pore_model import PoreModel
-    from signalalign_tpu.visualization import (
+    from signalalign_jax.compare import ModelDistributions
+    from signalalign_jax.models.hdp_model import load_nhdp
+    from signalalign_jax.models.pore_model import PoreModel
+    from signalalign_jax.visualization import (
         animate_kmer_distribution, plot_kmer_distribution_overlay)
 
     r73 = PoreModel.from_file(
@@ -44,7 +44,7 @@ def test_kmer_overlay_and_animation(tmp_path):
 
 
 def test_multiclass_variant_accuracy(tmp_path):
-    from signalalign_tpu.visualization import \
+    from signalalign_jax.visualization import \
         plot_multiclass_variant_accuracy
     rng = np.random.default_rng(1)
     n = 200
@@ -58,7 +58,7 @@ def test_multiclass_variant_accuracy(tmp_path):
 
 
 def test_sequencing_summary(tmp_path):
-    from signalalign_tpu.visualization import sequencing_summary
+    from signalalign_jax.visualization import sequencing_summary
     df = sequencing_summary(
         os.path.join(ONED, "1D.bam"),
         os.path.join(ONED, "1D.fastq.index.readdb"), [ONED],
@@ -69,15 +69,15 @@ def test_sequencing_summary(tmp_path):
 
 
 def test_alignment_breaks_and_raw_verify(tmp_path):
-    from signalalign_tpu.io.guide import guide_from_sam_record
-    from signalalign_tpu.io.read import NanoporeReadData
-    from signalalign_tpu.io.reference import ProcessedReference
-    from signalalign_tpu.io.sam import filter_reads, read_bam
-    from signalalign_tpu.models.pore_model import PoreModel
-    from signalalign_tpu.pipeline.signal_align import (AlignmentConfig,
+    from signalalign_jax.io.guide import guide_from_sam_record
+    from signalalign_jax.io.read import NanoporeReadData
+    from signalalign_jax.io.reference import ProcessedReference
+    from signalalign_jax.io.sam import filter_reads, read_bam
+    from signalalign_jax.models.pore_model import PoreModel
+    from signalalign_jax.pipeline.signal_align import (AlignmentConfig,
                                                        align_read)
-    from signalalign_tpu.pipeline.validate import event_summaries
-    from signalalign_tpu.visualization import (plot_alignment_breaks,
+    from signalalign_jax.pipeline.validate import event_summaries
+    from signalalign_jax.visualization import (plot_alignment_breaks,
                                                verify_load_from_raw)
 
     pairs = filter_reads(os.path.join(ONED, "1D.bam"),
@@ -91,7 +91,7 @@ def test_alignment_breaks_and_raw_verify(tmp_path):
     assert os.path.exists(tmp_path / "raw.png")
 
     # breaks plot on a real alignment
-    from signalalign_tpu.io.sam import reconstruct_reference_window
+    from signalalign_jax.io.sam import reconstruct_reference_window
     genome = np.full(4641652, ord("A"), dtype=np.uint8)
     _, records = read_bam(os.path.join(ONED, "1D.bam"))
     for r in records:
@@ -113,7 +113,7 @@ def test_alignment_breaks_and_raw_verify(tmp_path):
 
 
 def test_accuracy_vs_deviation(tmp_path):
-    from signalalign_tpu.visualization import (
+    from signalalign_jax.visualization import (
         deviation_call_data, get_percent_accuracy_vs_deltas,
         plot_accuracy_vs_alignment_deviation)
     rng = np.random.default_rng(3)
